@@ -1,9 +1,9 @@
-"""boundplanner_tpu — a TPU-native planning + MPC engine.
+"""boundplanner_tpu — a batched JAX planning + MPC engine.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of the
 Thieso/BoundPlanner reference (convex-set path planning + error-bounded
 model-predictive trajectory tracking for a 7-DoF arm), built for batched
-execution on TPU slices:
+execution on GPUs:
 
 - ``robot``    : pure-JAX iiwa14 kinematics (FK, world-aligned Jacobians,
                  Jacobian time-derivatives via ``jvp``), replacing

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native BoundPlanner/BoundMPC engine.
+"""Configuration for the JAX BoundPlanner/BoundMPC engine.
 
 Mirrors the knob surface of the reference (`bound_planner/utils/util_functions.py:11-50`
 ``Params`` namedtuple and the module-level set-size literals) as frozen
@@ -45,9 +45,6 @@ class MPCParams:
     qp_iters: int = 25
     line_search_steps: int = 6
     merit_penalty: float = 1e3
-    # route batched KKT factorizations to the Pallas all-VMEM kernel
-    # (TPU-only; non-TPU backends fall back automatically)
-    pallas_kkt: bool = False
     # QP subproblem backend: "ipm" (Mehrotra, one factorization per IPM
     # iteration) or "admm" (OSQP-style, ONE factorization per SQP
     # iteration + admm_iters cheap matvec sweeps)
@@ -73,11 +70,8 @@ class MPCParams:
     # apply the 1260 link-collision rows (80% of the runtime constraint
     # matrix) through their exact factorization J = A_l @ acol_u - e_dsl
     # instead of materializing/streaming them densely (`ocp_struct.link_*`).
-    # MEASURED NEGATIVE on v5e (4190 vs 4589 solves/s): the factored
-    # einsum chains carry tiny tensor dims (3, 15) that pad terribly in
-    # TPU tiles, while the dense row block they replace is one perfectly
-    # tiled MXU matmul — fewer bytes lost to worse tiling. Kept with full
-    # f64 equivalence tests as the record of the experiment.
+    # Not adopted: slower than the dense row block in earlier measurements;
+    # kept with full f64 equivalence tests.
     struct_link: bool = False
     # carry the QP's inequality duals across SQP iterations as the next
     # subproblem's interior-point warm start (clipped into a safe cone).
@@ -91,7 +85,7 @@ class MPCParams:
     # negative asked for): initialize s from the ACTUAL warm-start slack
     # h - G x0 and z from the carried duals, then apply Mehrotra's
     # initial-point centering shifts. Requires qp_warm_dual=True to carry
-    # z across SQP iterations. A/B evidence in ROUND4_NOTES.
+    # z across SQP iterations. Not adopted.
     qp_warm_sz: bool = False
     # compute the IPM dual residual's G^T z stream in bfloat16 (bounded
     # per-iteration rounding of the Newton rhs; NOT the round-1-negative
@@ -136,16 +130,11 @@ class MPCParams:
     # slack activation) stop firing the retry branch after esc_streak_limit
     # ticks; budget misses are fresh failures and always qualify
     esc_streak_limit: int = 3
-    # route the retry sub-batch's KKT factorizations through the Pallas
-    # kernel (which pads its lane axis to 128 — a k-lane retry pays
-    # full-width towers) vs the masked-loop Cholesky (tiles the tiny
-    # sub-batch at 8 sublanes). A/B evidence in ROUND4_NOTES.
-    esc_pallas: bool = False
     # consecutive failed ticks before the tick is treated as DEEP failure
     # (safe-stop braking engages + the re-anchor becomes eligible).
     # 0 = legacy n-2 (ride the whole stale horizon out, reference
-    # semantics `BoundMPC.py:728-733`). The round-4 long-horizon
-    # diagnosis (ROUND4_NOTES) showed n-2=13 lets a failing marginal
+    # semantics `BoundMPC.py:728-733`). A long-horizon diagnosis
+    # showed n-2=13 lets a failing marginal
     # scene replay an accelerating stale plan for 1.3 s while the
     # attempted-solve violation grows 0.07 -> 4.2; a shallower bar
     # brakes (and re-anchors) within a few ticks instead
@@ -154,8 +143,8 @@ class MPCParams:
     # stale-plan replay, `BoundMPC.py:728-733`): on a FAILED tick, if the
     # reused horizon's first 3 EE steps would enter an obstacle box,
     # engage safe-stop braking immediately instead of after
-    # deep_fail_ticks more replays. Measured motive + A/B in ROUND5_NOTES
-    # (CPU-mesh executed-EE excursion 3.2 cm -> guard). Default ON: it
+    # deep_fail_ticks more replays (motive: a CPU-mesh executed-EE
+    # excursion of 3.2 cm into a box). Default ON: it
     # only acts on failed ticks whose replay is provably colliding.
     fallback_guard: bool = True
 
@@ -196,86 +185,37 @@ def default_mpc_params() -> MPCParams:
 
 
 def perf_mpc_params() -> MPCParams:
-    """The standard throughput configuration used by bench.py and the graft
-    entry — kept identical so the persistent XLA compile cache is shared.
+    """The standard throughput configuration used by bench.py, chip_smoke.py
+    and the graft entry — kept identical so the persistent XLA compile
+    cache is shared.
 
-    Every knob is A/B-gated on (a) the demo-fleet TPU benchmark, (b) the
-    CPU obstacle closed-loop scenario, and (c) a 64-random-scene x 20-tick
-    TPU fleet:
-    - qp_iters=7 (vs 12/9): identical quality; 6 degrades.
-    - warm_shift + sqp_iters=4: random-fleet success 0.9938 vs 0.9547 for
-      the unshifted sqp=6 config, with 2.1x the path progress (better
-      warm starts both converge faster AND track better); CPU scenario
-      zero fallbacks (was 1).
-    - qp_bf16: +41% throughput, random-fleet success 0.9898 (-0.4% vs
-      f32, still far above the old default); demo fleet stays 1.000/0.
-    - manual_jac: +5% throughput AND random-fleet success 1.0000 with
-      max violation 5.5e-5 — the structured chain rule (static
-      sensitivities + 7/61-tangent local bundles) accumulates less f32
-      rounding than jacfwd through the whole rollout graph.
-    - sqp_iters=3 + qp_iters=6 on the shifted-warm-start stack: all
-      three gates stay PERFECT (demo fleet 1.000/0, CPU obstacle run 38
-      ticks / 0 fallbacks / 1.44 mm, 64-random-scene fleet success
-      1.0000 / viol 0).
-    - struct_ocp (block-banded structure, round 2): 12-tangent local AD
-      + static bound/slack rows applied structurally in the IPM.
-      Random-fleet A/B at batch 128 x 20 ticks: 3398 -> 4316 solves/s
-      (+27%) with identical quality (success 0.9918, max viol 0.0084),
-      single-scene p99 56.6 -> 37.3 ms; CPU obstacle gate 38 ticks /
-      0 fallbacks / 1.01 mm. struct_chunked=False: the causal chunk
-      split cuts FLOPs a further 1.5x (2.29x total vs dense) but its
-      gathers/scatters cost 29% wall clock on the latency-bound tick —
-      documented FLOP-minimal mode, not adopted.
-    - qp_iters=5 + qp_gondzio=1 (round 2): one Gondzio centrality
-      corrector per IPM iteration (cheap extra solve against the
-      existing factorization) carries the accuracy of qp6 with one
-      factorization fewer: 4458 -> 4584 solves/s, success/viol
-      unchanged, MORE path progress (mean phi 0.181 -> 0.200), CPU
-      obstacle gate 38 ticks / 0 fallbacks / 0.93 mm. qp4+gondzio1
-      costs a fallback on the obstacle gate (40 ticks / 1); qp4+
-      gondzio2 shows a violation blowup (max viol 1.2) — rejected.
-    - qp_bf16_rd (round 2): the dual residual's G^T z stream in bf16
-      removes the last f32 full-G passes (5 per QP): 4578 -> 5008
-      solves/s (+9%) with IDENTICAL fleet quality (success 0.9922,
-      viol 0.0084, same phi) and obstacle gate 38 ticks / 0 fallbacks /
-      0.91 mm. Unlike the round-1-negative recursive r_d carry, the
-      bf16 rounding is bounded per iteration and does not accumulate.
-    - deep_fail_ticks=3 (round 4): engage safe-stop braking (and the
-      in-scan re-anchor once at rest) after 3 consecutive failed solves
-      instead of riding the full fallback horizon (n-2 = 13 ticks,
-      reference semantics `BoundMPC.py:728-733`). The long-horizon
-      diagnosis (ROUND4_NOTES) showed the deep bar is what bounds a
-      marginal scene's failure spiral: 128x50 gate max_viol
-      4.232 (legacy) -> 1.640 (bar 4) -> 0.684 (bar 3) with success
-      0.9900 -> 0.9903 -> 0.9912 and throughput unchanged (5438 ->
-      5434 -> 5406 solves/s, within wobble). Bar 2 measured 0.9916 /
-      0.662 — within wobble of bar 3; 3 keeps margin against
-      false-positive braking on short transient miss runs (observed
-      streaks of 1-2 on budget-miss scenes). In-scan budget escalation
-      (esc_lanes>0) measured and NOT adopted: at batch<=128 the tick is
-      latency-bound, so a 4-lane retry costs a full extra tick — 13-21%
-      throughput for +0.0002-0.0005 success (the failing ticks are
-      dominated by one structural scene and one marginal-spiral scene
-      the (6,8) retry cannot rescue); kept available for
-      throughput-bound deployments (chunked 10k fleets amortize the
-      retry across chunks).
-    - qp_iters=4 + qp_gondzio=2 (round 5): REVISIT of the round-2
-      rejection above — that blowup (max viol 1.2) predates
-      deep_fail_ticks=3 (which bounds failure spirals) and the round-4
-      FK/residual reassociations (after which the marginal-spiral scene
-      class tracks, ROUND5_NOTES). At the round-5 tree the full 4-gate
-      ledger passes: IPM microbench 19.46 -> 17.92 ms (+8.6%); 128x20
-      fleet 5880 solves/s, success 0.9922, viol bit-identical 0.0084,
-      phi +12%; 128x50 fleet 6205 solves/s (+5.3%), success 0.9920,
-      viol 0.078 (braked-attempt class, well under the 0.68 historical
-      bound), phi +13%; scene-43 replay PERFECT (30/30, viol 0.0000,
-      phi 0.831); CPU obstacle 40 ticks / 0 fallbacks / 0.99 mm. One
-      less KKT factorization per IPM iteration; the second Gondzio
-      corrector (cheap solves against the existing factor) carries the
-      accuracy."""
+    Each knob was adopted by A/B gates on fleet success, max violation and
+    path progress (a demo fleet, the CPU obstacle closed-loop scenario and
+    a 64-random-scene x 20-tick fleet) and on throughput:
+    - warm_shift + sqp_iters=3: shifted warm starts converge faster and
+      track better than the unshifted previous solution.
+    - qp_iters=4 + qp_gondzio=2: two Gondzio centrality correctors (cheap
+      extra solves against the existing factorization) carry the accuracy
+      of more IPM iterations with fewer factorizations.
+    - qp_bf16 / qp_bf16_rd: the constraint-matrix streams of the search
+      direction and of the dual residual's G^T z in bfloat16 with float32
+      accumulation; the residual recomputation stays float32, so the
+      rounding is bounded per iteration and does not accumulate.
+    - struct_ocp (struct_chunked=False): 12-tangent local AD and the
+      static bound/slack rows applied structurally inside the IPM; the
+      causal chunk split of the Gram cuts FLOPs further but its
+      gathers/scatters cost more than they save, so it stays off.
+    - deep_fail_ticks=3: engage safe-stop braking (and the in-scan
+      re-anchor once at rest) after 3 consecutive failed solves instead
+      of riding the full fallback horizon (n-2 = 13 ticks, reference
+      semantics `BoundMPC.py:728-733`); it bounds a marginal scene's
+      failure spiral. In-scan budget escalation (esc_lanes>0) stays off:
+      at batch <= 128 a retry costs a full extra tick for little success.
+
+    None of these values has been re-gated on the H100 (PERF.md)."""
     return MPCParams(sqp_iters=3, qp_iters=4, qp_gondzio=2,
                      line_search_steps=4,
-                     pallas_kkt=True, warm_shift=True, qp_bf16=True,
+                     warm_shift=True, qp_bf16=True,
                      qp_bf16_rd=True,
                      struct_ocp=True, struct_chunked=False,
                      deep_fail_ticks=3)

@@ -1,4 +1,4 @@
-"""BoundMPC: receding-horizon error-bounded tracking MPC — fused TPU tick.
+"""BoundMPC: receding-horizon error-bounded tracking MPC — fused device tick.
 
 Re-design of the reference ``BoundMPC`` class
 (`bound_planner/BoundMPC/BoundMPC.py:27-1040`). One fully jitted function
@@ -212,7 +212,7 @@ def mpc_tick(carry: MPCCarry, meas: dict, obs: ObstacleArrays, cfg: MPCParams):
     at_rest = jnp.max(jnp.abs(meas["dq0"])) < 0.1
     reanchor = deep_prev & at_rest & carry.has_prev
     # project the parked pose onto ALL nr_segs window segments and advance
-    # the sector to the nearest before anchoring (ADVICE r3: a safe-stop
+    # the sector to the nearest before anchoring (a safe-stop
     # that drifted into a LATER window segment would otherwise re-anchor
     # up to a full segment behind the true pose and track from a stale
     # reference) — mirrors the reference's full re-projection in
@@ -345,7 +345,7 @@ def mpc_tick(carry: MPCCarry, meas: dict, obs: ObstacleArrays, cfg: MPCParams):
         # engage the safe-stop braking NOW instead of after
         # deep_fail_ticks more replays. Measured motive: on the CPU mesh
         # a backend-flipped failing scene's unchecked pre-brake replay
-        # swept the executed EE 3.2 cm into a box (ROUND5_NOTES). Only
+        # swept the executed EE 3.2 cm into a box. Only
         # the first 3 steps are checked — they are what can execute
         # before the deep bar engages anyway; a stale TAIL clipping a box
         # is recoverable and should not trigger a park. Point-in-box via

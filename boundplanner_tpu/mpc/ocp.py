@@ -1,9 +1,9 @@
 """The BoundMPC optimal control problem, condensed onto the jerk sequence.
 
-TPU-first re-design of the reference NLP
+Accelerator-first re-design of the reference NLP
 (`bound_planner/BoundMPC/casadi_ocp_formulation.py:13-421`). The reference
 keeps all states as decision variables (44N+6 = 666 vars) with the jerk-chain
-dynamics as equality constraints and hands the sparse NLP to Ipopt. On TPU
+dynamics as equality constraints and hands the sparse NLP to Ipopt. Here
 we exploit that those dynamics (`casadi_ocp_formulation.py:106-164`) are
 *explicit linear recursions*: the joint states (q, dq, ddq) are affine in the
 jerk sequence, the pose states are explicit nonlinear functions of them
@@ -13,8 +13,8 @@ states leaves an equality-free NLP in
     x = [u_1..u_{N-1} (98) | dslacks (6) | rs0 (1) | drs (N) | ps0 (1) | dps (N)]
 
 of dimension 136 with ~2.4k *inequality* rows — a dense Gauss-Newton
-problem whose linear algebra is all matmuls + small Cholesky: exactly the
-MXU's shape, and trivially batched over scenes with ``vmap``.
+problem whose linear algebra is all matmuls + small Cholesky: dense,
+fixed-shape, and trivially batched over scenes with ``vmap``.
 
 The objective is written exactly as a sum of squared residuals (including
 the smooth-one-norm path term via a square-root residual), so the
@@ -108,12 +108,10 @@ def rollout_joints(u, q0, dq0, ddq0, dt, static: bool = False):
     dynamics (`casadi_ocp_formulation.py:106-120`): affine in u.
 
     ``static`` evaluates the closed form (free response + impulse-response
-    matmuls) instead of the sequential scan. MEASURED NEGATIVE inside the
-    fused tick on v5e (4174 vs 4588 solves/s): the (15, 15) x (15, 7)
-    matmuls tile poorly, while the scan's 14 elementwise steps fuse into
-    cheap (batch, 7) VPU ops — the sequential depth they add is hidden
-    under the batch. Kept for the record (same arithmetic up to
-    reassociation)."""
+    matmuls) instead of the sequential scan. Not adopted: slower than the
+    scan inside the fused tick in earlier measurements (the scan's 14
+    elementwise steps fuse into cheap (batch, 7) ops). Kept with its tests
+    (same arithmetic up to reassociation)."""
     if static:
         n = u.shape[0]
         dtype = u.dtype
@@ -285,8 +283,7 @@ def _step_local(k, z, params, cfg: MPCParams):
     # block order-invariantly (J^T r, Gram), so this is a pure layout
     # choice — it lets `evaluate_with_jac_structured` assemble jr_steps
     # as [jr_nl | static affine block] in one fusable concat instead of
-    # four interleaved splices (TPU trace: +7.4% on the 128-batch SQP
-    # microbench, ROUND4_NOTES). The reference keeps cost terms in
+    # four interleaved splices. The reference keeps cost terms in
     # formulation order (`casadi_ocp_formulation.py:266-334`); order is
     # semantically free there too.
     r = jnp.concatenate(
@@ -390,8 +387,8 @@ def evaluate(x, params, cfg: MPCParams):
     """Joint evaluation of objective residuals and inequality constraints.
 
     One rollout + one per-step reference/error sweep feeds both outputs —
-    the graph is built once (matters doubly here: runtime, and remote-TPU
-    compile time scales superlinearly with program size).
+    the graph is built once (matters doubly here: runtime, and compile
+    time, which grows with program size).
 
     Residuals: cost = sum(r^2), mirroring `casadi_ocp_formulation.py:266-299`
     + `objective_function` (`bound_mpc_functions.py:393-424`) with

@@ -16,7 +16,7 @@ bound rows. This module exploits the problem structure instead:
   Jacobians directly — no AD at all.
 
 The pieces compose into the full (residual, constraint) Jacobians with a
-few batched einsums (MXU work). Row order matches `ocp.evaluate` exactly;
+few batched einsums. Row order matches `ocp.evaluate` exactly;
 `tests/test_ocp_jac.py` verifies both values and Jacobians against
 ``jacfwd(evaluate)`` in float64.
 """
@@ -262,7 +262,7 @@ def evaluate_with_jac(x, params, cfg: MPCParams):
 
 
 # --------------------------------------------------------------------------
-# Structured (block-banded) evaluation: VERDICT r1 #3.
+# Structured (block-banded) evaluation.
 #
 # `evaluate_with_jac` still differentiates `_step_local` w.r.t. all 61
 # packed local inputs. But the reference/error math
@@ -394,10 +394,10 @@ def evaluate_with_jac_structured(x, params, cfg: MPCParams):
     ddsl = jnp.asarray(s["ddsl"], dtype)  # (6, nx)
 
     # single ordered concatenation (a zeros+scatter assembly materializes
-    # the (n-1, 40, nx) buffer once per .at[].set — visible as pure-copy
-    # time in the TPU trace). `_step_local` keeps the 26 NL rows
-    # contiguous, so the NL block splices in whole — two fusable chunks
-    # instead of four interleaved slices (+7.4% microbench, ROUND4_NOTES).
+    # the (n-1, 40, nx) buffer once per .at[].set — pure-copy time).
+    # `_step_local` keeps the 26 NL rows contiguous, so the NL block
+    # splices in whole — two fusable chunks instead of four interleaved
+    # slices.
     jr_steps = jnp.concatenate(
         [
             jr_nl,                                  # rows 0-25 (NL)
@@ -416,15 +416,11 @@ def evaluate_with_jac_structured(x, params, cfg: MPCParams):
     jg_set = jg_nl[:, :15, :] - dps_traj[:, None, :]
     jg_band = jg_nl[:, 15:21, :] - drs_traj[:, None, :]
     # link rows (90): linear in p_col through the per-scene set matrices.
-    # Contraction REASSOCIATED for the TPU (round-3 trace finding: the
-    # previous acol_x (n-1, 6, 3, nx) intermediate + its (6,15)->90 merge
-    # reshape cost ~2 ms/tick in pure layout copies — the (8,128) tile
-    # pads the 3-dim 2.7x and the merge is a physical copy): contract the
-    # TINY dims first (A_l . acol over i, 3 MACs) into ab (n-1, 90, 7),
-    # then ONE well-tiled batched (90, 7) @ (7, nx) MXU matmul emits the
-    # link block directly in its final row-major shape. Same math, float
-    # reassociation only (full gate set re-run at the round-4 HEAD that
-    # contains this change — see the ROUND4_NOTES gate ledger).
+    # Contraction order: the TINY dims first (A_l . acol over i, 3 MACs)
+    # into ab (n-1, 90, 7), then ONE batched (90, 7) @ (7, nx) matmul emits
+    # the link block directly in its final row-major shape, with no
+    # (n-1, 6, 3, nx) intermediate and no (6, 15) -> 90 merge copy. Same
+    # math, float reassociation only.
     if not cfg.struct_link:
         ab = jnp.einsum(
             "lri,klij->klrj", params["a_set_joints"], acol

@@ -36,7 +36,7 @@ is block-banded by horizon step; after condensing onto the jerk sequence
 
 Everything here is scene-independent and built once per (n, dt) in numpy;
 the methods are closed over those constants so a scene-``vmap`` broadcasts
-them (they are shared weights — real MXU matmuls over the batch).
+them (they are shared weights — real matmuls over the batch).
 """
 
 from __future__ import annotations

@@ -51,7 +51,6 @@ def solve_sqp(x0, params, cfg: MPCParams) -> SQPResult:
         line_search_steps=cfg.line_search_steps,
         merit_penalty=cfg.merit_penalty,
         viol_tol=1e-4,
-        pallas_kkt=cfg.pallas_kkt,
         qp_solver=cfg.qp_solver,
         admm_iters=cfg.admm_iters,
         qp_lowp=cfg.qp_bf16,

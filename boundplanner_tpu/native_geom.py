@@ -1,13 +1,15 @@
 """ctypes bindings for the native geometry core (native/geom.cpp).
 
-Compiled lazily with g++ on first use (cached under native/build/); every
-entry point has a numpy fallback in `utils.sets`, so the package works even
-without a toolchain.
+Compiled lazily with g++ on first use into native/build/ (not committed),
+and rebuilt whenever geom.cpp is newer than the library; every entry point
+has a numpy fallback in `utils.sets`, so the package works even without a
+toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import pathlib
 import subprocess
 import threading
@@ -17,8 +19,7 @@ import numpy as np
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 _SRC = _ROOT / "native" / "geom.cpp"
-_BUILD = _ROOT / "native" / "build"
-_LIB_PATH = _BUILD / "libbp_geom.so"
+_LIB_PATH = _ROOT / "native" / "build" / "libbp_geom.so"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -26,16 +27,28 @@ _tried = False
 
 
 def _compile() -> bool:
-    _BUILD.mkdir(parents=True, exist_ok=True)
+    """Build into a private file, then move it into place in one step, so
+    concurrent processes never load a half-written library."""
+    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
     cmd = [
         "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-        str(_SRC), "-o", str(_LIB_PATH),
+        str(_SRC), "-o", str(tmp),
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
         return True
     except Exception:
+        tmp.unlink(missing_ok=True)
         return False
+
+
+def _stale() -> bool:
+    """No library yet, or one built before the last edit of its source."""
+    if not _LIB_PATH.exists():
+        return True
+    return _SRC.exists() and _SRC.stat().st_mtime > _LIB_PATH.stat().st_mtime
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -44,9 +57,8 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not _LIB_PATH.exists():
-            if not _SRC.exists() or not _compile():
-                return None
+        if _stale() and (not _SRC.exists() or not _compile()):
+            return None
         try:
             lib = ctypes.CDLL(str(_LIB_PATH))
         except OSError:

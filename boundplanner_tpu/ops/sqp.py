@@ -40,7 +40,6 @@ def gauss_newton_sqp(
     line_search_steps: int = 6,
     merit_penalty: float = 1e3,
     viol_tol: float = 1e-4,
-    pallas_kkt: bool = False,
     qp_solver: str = "ipm",
     admm_iters: int = 60,
     eval_jac_fn=None,
@@ -101,12 +100,11 @@ def gauss_newton_sqp(
             hess = 2.0 * jr.T @ jr + lam * eye
 
         if qp_solver == "admm":
-            qp = solve_qp_admm(hess, grad, jg, -g, iters=admm_iters,
-                               pallas_kkt=pallas_kkt)
+            qp = solve_qp_admm(hess, grad, jg, -g, iters=admm_iters)
         elif struct is not None and link_a is not None:
             md, ml = struct.m_dense, struct.m_link
             qp = solve_qp(hess, grad, jg, -g[:md], iters=qp_iters,
-                          tol=1e-10, pallas_kkt=pallas_kkt, lowp=qp_lowp,
+                          tol=1e-10, lowp=qp_lowp,
                           kkt_every=kkt_every, struct=struct,
                           h_tail=-g[md + ml:], gondzio=qp_gondzio,
                           link=(acol_u, link_a), h_link=-g[md : md + ml],
@@ -115,14 +113,14 @@ def gauss_newton_sqp(
         elif struct is not None:
             m_run = struct.m_run
             qp = solve_qp(hess, grad, jg, -g[:m_run], iters=qp_iters,
-                          tol=1e-10, pallas_kkt=pallas_kkt, lowp=qp_lowp,
+                          tol=1e-10, lowp=qp_lowp,
                           kkt_every=kkt_every, struct=struct,
                           h_tail=-g[m_run:], gondzio=qp_gondzio,
                           z0=z_prev, lowp_rd=qp_lowp_rd,
                           warm_sz=qp_warm_sz)
         else:
             qp = solve_qp(hess, grad, jg, -g, iters=qp_iters, tol=1e-10,
-                          pallas_kkt=pallas_kkt, lowp=qp_lowp,
+                          lowp=qp_lowp,
                           kkt_every=kkt_every, gondzio=qp_gondzio,
                           z0=z_prev, lowp_rd=qp_lowp_rd,
                           warm_sz=qp_warm_sz)

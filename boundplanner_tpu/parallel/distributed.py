@@ -1,4 +1,4 @@
-"""Multi-host (DCN) tier: fleets sharded over every process of a slice.
+"""Multi-process tier: fleets sharded over every process of a cluster.
 
 New design — nothing distributed exists in the reference (SURVEY.md §2.3);
 this is the N>=2-hosts rung of the BASELINE measurement ladder. The model:
@@ -7,13 +7,13 @@ this is the N>=2-hosts rung of the BASELINE measurement ladder. The model:
   first, which wires `jax.distributed` (coordinator + peers) so
   ``jax.devices()`` becomes the GLOBAL device list;
 - the fleet lives on a single global ``scenario`` mesh axis laid over all
-  chips (ICI within a host/slice, DCN across hosts). Each host feeds only
-  its addressable shard of the batch
+  devices of all processes. Each process feeds only its addressable shard
+  of the batch
   (:func:`global_from_local` / `jax.make_array_from_process_local_data`);
 - the jitted rollout is byte-identical to the single-host path
   (`mesh.sharded_rollout`'s `run`); scenes never communicate, so the only
-  cross-host traffic is the final diagnostic reductions (mean success,
-  max violation), which XLA lowers to DCN collectives;
+  cross-process traffic is the final diagnostic reductions (mean success,
+  max violation), which XLA lowers to collectives;
 - results come back per host as the local shards (:func:`local_from_global`)
   plus replicated global diagnostics.
 
@@ -21,14 +21,16 @@ Tested by spawning real extra processes on a virtual CPU mesh
 (`tests/test_distributed.py`): two processes x 4 virtual devices must
 reproduce the single-process 8-device fleet exactly.
 
-CLI launcher (one command fans out N local processes, e.g. to dry-run a
-multi-host topology on one machine)::
+CLI launcher (one command fans out N local processes, one GPU each, e.g.
+to run a multi-host topology on one machine)::
 
     python -m boundplanner_tpu.parallel.distributed --nproc 2 -- \
         python my_fleet_script.py
 
 Each child inherits BOUNDPLANNER_DIST_{COORD,NPROCS,PID} and calls
-``initialize()`` with no arguments.
+``initialize()`` with no arguments. Child ``i`` sees only the ``i``-th
+visible GPU (``CUDA_VISIBLE_DEVICES``): a JAX process reserves most of the
+memory of every card it opens, so two processes must never share one.
 """
 
 from __future__ import annotations
@@ -56,8 +58,8 @@ def initialize(
 
     Arguments default to the ``BOUNDPLANNER_DIST_*`` environment variables
     set by the launcher. On CPU backends the cross-process collective
-    implementation must be selected before backend init (gloo); TPU slices
-    ignore it (ICI/DCN collectives are native).
+    implementation must be selected before backend init (gloo); GPU
+    backends ignore it (their collectives go through NCCL).
     """
     import jax
 
@@ -69,7 +71,7 @@ def initialize(
         process_id = int(os.environ[ENV_PID])
     try:
         jax.config.update("jax_cpu_collectives_implementation", cpu_collectives)
-    except Exception:  # config knob absent on some builds — TPU path
+    except Exception:  # config knob absent on some builds
         pass
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -85,7 +87,7 @@ def is_initialized() -> bool:
 
 
 def global_scenario_mesh(axis: str = "scenario"):
-    """Mesh over ALL devices of ALL processes (DCN-spanning)."""
+    """Mesh over ALL devices of ALL processes."""
     import jax
     from jax.sharding import Mesh
 
@@ -149,7 +151,7 @@ def distributed_rollout(carry_local, q0_local, obs_local, cfg, n_ticks: int,
     equal on every process). Returns ``(final_local, recs_local, diag)``
     where the first two are host numpy shards of this process's scenes and
     ``diag`` holds fleet-global reductions (identical on every process —
-    the cross-host psum/pmax ride DCN).
+    cross-process psum/pmax collectives).
     """
     import jax
     import jax.numpy as jnp
@@ -196,12 +198,20 @@ def free_port() -> int:
 def launch(cmd: Sequence[str], nproc: int, env_extra: Optional[dict] = None,
            timeout: Optional[float] = None) -> list:
     """Spawn ``nproc`` copies of ``cmd`` wired to one coordinator; wait for
-    all; return the CompletedProcess list (raises on nonzero exit)."""
+    all; return the (returncode, output) list (raises on nonzero exit).
+    Child ``i`` gets the ``i``-th entry of ``CUDA_VISIBLE_DEVICES`` (from
+    ``env_extra`` or this process; card ``i`` when unset) as its only GPU."""
     coord = f"localhost:{free_port()}"
+    base = dict(os.environ)
+    base.update(env_extra or {})
+    visible = [d for d in base.get("CUDA_VISIBLE_DEVICES", "").split(",") if d]
+    if visible and len(visible) < nproc:
+        raise ValueError(f"{nproc} processes but only {len(visible)} visible "
+                         f"GPUs ({','.join(visible)})")
     procs = []
     for pid in range(nproc):
-        env = dict(os.environ)
-        env.update(env_extra or {})
+        env = dict(base)
+        env["CUDA_VISIBLE_DEVICES"] = visible[pid] if visible else str(pid)
         env[ENV_COORD] = coord
         env[ENV_NPROCS] = str(nproc)
         env[ENV_PID] = str(pid)

@@ -1,6 +1,6 @@
 """Global convex-set path planner.
 
-Re-design of `bound_planner/BoundPlanner/BoundPlanner.py:26-896` for TPU:
+Re-design of `bound_planner/BoundPlanner/BoundPlanner.py:26-896` for batched devices:
 the irregular parts (growing a roadmap of convex sets, shortest path over
 set intersections, rejection sampling) stay host-side numpy orchestration,
 while every numeric leaf runs as a batched device kernel:
@@ -575,7 +575,7 @@ class BoundPlanner:
             # from that obstacle — the measured result was segment-0 sets
             # overlapping a box by 3-5 cm on fleet scenes whose sampled
             # boxes land on the start EE, i.e. a corridor the MPC
-            # faithfully tracks THROUGH the box (ROUND5_NOTES). Growing
+            # faithfully tracks THROUGH the box. Growing
             # from the projected-free start makes the corridor sound; the
             # robot starts slightly outside segment 0 (phi < 0, slack
             # absorbs the initial set violation) and tracking pulls it

@@ -1,6 +1,6 @@
 """Convex collision-free set construction — batched device kernels.
 
-TPU-native re-design of the reference ``ConvexSetFinder``
+Batched re-design of the reference ``ConvexSetFinder``
 (`bound_planner/BoundPlanner/ConvexSetFinder.py:102-510`). The reference
 alternates native-solver calls (OSQP/qpOASES projections, CLARABEL MVIE)
 with Python loops that mutate obstacle lists ("delete covered obstacles").
@@ -8,8 +8,9 @@ Here:
 
 - obstacles live in fixed-shape padded arrays (H-rep rows + the 8 box
   corners + an active mask), so a whole scene is one pytree;
-- all per-obstacle projections are solved in one ``vmap`` of the dense
-  QP-IPM (`ops.qp`);
+- all per-obstacle projections are solved in one batch: segment-box
+  closest points by `ops.seg_proj`, ellipsoid-metric projections by a
+  ``vmap`` of the dense QP-IPM (`ops.qp`);
 - the sequential "closest obstacle -> separating half-space -> drop covered
   obstacles" loop becomes a fixed-trip-count masked ``scan``;
 - the ellipsoid inflation loop calls the barrier-Newton MVIE (`ops.mvie`).
@@ -33,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops.qp import solve_qp
-from ..ops.pallas_proj import seg_poly_closest
+from ..ops.seg_proj import seg_poly_closest
 from ..ops.mvie import mvie, mvie_fixed_mid
 from ..utils.sets import box_vertices, make_box
 
@@ -173,10 +174,8 @@ def find_set_line(
         a_init, b_init = _init_rows_workspace(ws_min, ws_max, dtype)
 
     # Closest obstacle point to the segment, per obstacle (batched;
-    # ref `compute_set_projs_line`, `ConvexSetFinder.py:491-510`). The
-    # custom_vmap boundary routes TPU-f32 batches — including every outer
-    # link/scene vmap level of the fused MPC tick — into the all-VMEM
-    # Pallas Dykstra kernel; other backends keep the exact IPM.
+    # ref `compute_set_projs_line`, `ConvexSetFinder.py:491-510`;
+    # `ops.seg_proj`).
     m = obs.a.shape[0]
     xs, phis = seg_poly_closest(
         obs.a,

@@ -7,7 +7,7 @@ Gauss-Newton SQP (`ops.sqp`).
 Re-design note: the reference enforces EE-tip containment along each
 segment through per-face interior-maximizer root constraints
 (`optimization_functions.py:274-363`: a stationarity equality gated by a
-sign test, one auxiliary variable per face). On TPU we instead constrain
+sign test, one auxiliary variable per face). Here we instead constrain
 the tip at a fixed fan of interpolation samples per segment — same intent
 (tip stays inside the via set during the blended motion), fixed shapes, no
 gated equalities; the reference itself samples omega the same way in its

@@ -1,6 +1,6 @@
 """Pure-JAX kinematics of the KUKA iiwa14.
 
-TPU-native replacement for the reference's Pinocchio / serialized-CasADi
+Pure-JAX replacement for the reference's Pinocchio / serialized-CasADi
 kinematics (`bound_planner/RobotModel/RobotModel.py:146-267` and the
 ``*.ca`` blobs). The kinematic chain is transcribed from
 `bound_planner/RobotModel/iiwa.urdf`:
@@ -203,16 +203,15 @@ def fk_frames(q, chain: "RobotChain" = None):
 
     ``chain`` selects the robot (default iiwa14; see ``gen3_chain``).
 
-    Re-design note (TPU): the chain is evaluated as COLUMN operations, not
+    Re-design note: the chain is evaluated as COLUMN operations, not
     3x3 matmuls. Each fixed joint rotation is a signed permutation (rpy
     multiples of pi/2, `iiwa.urdf:25-122`), so ``r_cur @ joint_r[i]`` is a
     static column shuffle, and right-multiplying by Rz(q_i) mixes only
     columns 0/1: col0' = c*A0 + s*A1, col1' = c*A1 - s*A0, col2' = A2.
-    Under the fleet vmap the per-joint 3x3 matmuls would each pad to one
-    (8,128)-tiled MXU dispatch; the column form is fusable (batch, 3) VPU
-    FMA chains — measured +15.7% on the 128-batch SQP microbench
-    (ROUND4_NOTES). Values identical up to dropping ~6e-17 crumb entries
-    of the constant factors and float reassociation (ulps)."""
+    Under the fleet vmap the per-joint 3x3 matmuls would each be a tiny
+    matmul; the column form is fusable (batch, 3) element-wise FMA chains.
+    Values identical up to dropping ~6e-17 crumb entries of the constant
+    factors and float reassociation (ulps)."""
     if chain is None:
         chain = IIWA14_CHAIN
     dtype = jnp.asarray(q).dtype

@@ -1,6 +1,6 @@
 """SO(3) utilities as pure JAX functions.
 
-TPU-native replacements for the numpy/CasADi dual-mode helpers of the
+Pure-JAX replacements for the numpy/CasADi dual-mode helpers of the
 reference (`bound_planner/utils/optimization_functions.py:35-104`,
 scipy ``Rotation`` conversions used throughout). Every function here is
 jit/vmap/grad-safe: fixed shapes, no data-dependent branching (smooth
@@ -59,7 +59,7 @@ def matrix_to_quat(r):
     """Rotation matrix -> unit quaternion (w, x, y, z), w >= 0.
 
     Branch-free Shepperd method (all four candidate quaternions computed,
-    the numerically best selected with ``where``) so it is vmap/TPU safe.
+    the numerically best selected with ``where``) so it is vmap/jit safe.
     """
     r = jnp.asarray(r)
     t = jnp.trace(r)

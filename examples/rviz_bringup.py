@@ -8,19 +8,13 @@ payload-dict logging otherwise), register the Trajectory/MPCParams host
 services, and stream markers / paths / joint states while the MPC tracks.
 
 With ROS 2 + RViz:  ros2 run rviz2 rviz2   (frame `world`), then
-                    BP_PLATFORM=cpu python examples/rviz_bringup.py
+                    JAX_PLATFORMS=cpu python examples/rviz_bringup.py
 Headless:           same command — payloads are built and logged, no-op
                     publish (exercised by tests/test_ros_compat.py).
 """
 
-import os
 import sys
 from pathlib import Path
-
-if os.environ.get("BP_PLATFORM"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["BP_PLATFORM"])
 
 import numpy as np
 from scipy.spatial.transform import Rotation as R

@@ -6,7 +6,7 @@ setup(
     name="boundplanner_tpu",
     version="0.1.0",
     description=(
-        "TPU-native convex-set path planning + error-bounded MPC engine "
+        "Batched convex-set path planning + error-bounded MPC engine "
         "(JAX/XLA/Pallas) for 7-DoF arms"
     ),
     packages=find_packages(include=["boundplanner_tpu", "boundplanner_tpu.*"]),

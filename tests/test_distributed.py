@@ -99,3 +99,22 @@ def test_global_from_local_roundtrip():
     back = dist.local_from_global(g)
     np.testing.assert_array_equal(back["a"], tree["a"])
     np.testing.assert_array_equal(back["b"], tree["b"])
+
+
+@pytest.mark.parametrize("visible, want", [
+    (None, ["0", "1"]),
+    ("3,5", ["3", "5"]),
+])
+def test_launch_gives_each_child_one_card(monkeypatch, visible, want):
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    extra = {} if visible is None else {"CUDA_VISIBLE_DEVICES": visible}
+    cmd = [sys.executable, "-c",
+           "import os; print(os.environ['CUDA_VISIBLE_DEVICES'])"]
+    outs = dist.launch(cmd, 2, env_extra=extra, timeout=60)
+    assert [out.strip() for _, out in outs] == want
+
+
+def test_launch_refuses_more_processes_than_cards():
+    with pytest.raises(ValueError, match="visible"):
+        dist.launch([sys.executable, "-c", "pass"], 3,
+                    env_extra={"CUDA_VISIBLE_DEVICES": "0,1"})

@@ -1,5 +1,5 @@
 """Budget escalation on failing ticks (`parallel.batch.fleet_rollout` +
-`_escalate_failed_lanes`, VERDICT r3 next-#3).
+`_escalate_failed_lanes`).
 
 The perf iteration budget leaves ~1% of fleet ticks infeasible; the
 hard-scene anchor (tests/test_external_anchor.py) proved those ticks are
@@ -186,7 +186,7 @@ def test_escalation_rescues_hard_scene_tick():
     # escalation changes the closed-loop trajectory, so downstream ticks
     # of this chaotic 5-obstacle scene can fail anew (each a fresh budget
     # miss) — the bar is strict improvement with bounded violations, not
-    # perfection (the fleet-level bar lives in the TPU gate ledger)
+    # perfection (the fleet-level bar lives in the GPU fleet gates)
     assert fails1 < fails0, (fails1, fails0)
     assert float(np.asarray(recs1["viol"]).max()) < 5e-3
 

@@ -9,7 +9,7 @@ must agree and our Gauss-Newton SQP must not converge to a worse point.
 
 This is the test the self-golden regression harness
 (`test_golden_regression.py`) cannot provide — it would fail if the SQP
-quietly converged to a poorer optimum (VERDICT r1 weak-#1).
+quietly converged to a poorer optimum.
 """
 
 import numpy as np
@@ -134,7 +134,7 @@ def test_five_tick_closed_loop_matches_slsqp():
 
 @pytest.mark.slow
 def test_hard_scene_failing_tick_anchored():
-    """VERDICT r2 weak-#1 asked for an external anchor on a failing tick
+    """An external anchor on a failing tick
     of a 5-obstacle corridor scene. Building it FALSIFIED the round-2
     reading: the sub-cm-violation ticks of the hard fleet are NOT
     structural infeasibility — SLSQP reaches a fully feasible point
@@ -143,7 +143,7 @@ def test_hard_scene_failing_tick_anchored():
     qp_iters=8 also solves the tick exactly (viol 0, cost 5.5555 —
     matching SLSQP). The correct claim, pinned here: those ticks are
     ITERATION-BUDGET misses, a measured throughput/quality tradeoff whose
-    single-tick failures the closed-loop fallback absorbs (ROUND3_NOTES).
+    single-tick failures the closed-loop fallback absorbs.
 
     Asserts (a) the perf-budget solve fails on the pinned tick, (b) SLSQP
     proves the tick feasible, (c) our escalated budget matches SLSQP's

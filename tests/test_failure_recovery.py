@@ -108,7 +108,7 @@ def test_exhausted_fallback_brakes_to_rest():
 
 
 def test_reanchor_projects_onto_nearest_window_segment():
-    """ADVICE r3: a safe-stop that drifted into a LATER window segment
+    """A safe-stop that drifted into a LATER window segment
     must re-anchor onto THAT segment (projection over all nr_segs window
     segments + sector advance), not clamp to the end of segment 0 and
     track from a reference a full segment behind the true pose — mirrors
@@ -160,7 +160,7 @@ def test_reanchor_projects_onto_nearest_window_segment():
 
 
 def test_reanchor_recovers_after_safe_stop():
-    """Round-3 re-design (VERDICT r2 #3): after the fallback horizon is
+    """Re-design: after the fallback horizon is
     exhausted and the arm has braked to rest, the tick re-anchors the
     path-progress state to the parked pose (projection onto the current
     segment, like the reference's replanning re-init `BoundMPC.py:313-322`)

@@ -1,7 +1,7 @@
 """Tests for the benchmark fleet cache (`parallel.fleet_cache`).
 
 The cache is the bench's scene source: randomized planner-built fleets are
-planned once on CPU and pickled; the TPU bench process only loads. These
+planned once on CPU and pickled; the GPU bench process only loads. These
 tests cover the schema guard, the key layout, and (slow) a real 2-scene
 build + reload round trip feeding the batched rollout.
 """

@@ -4,7 +4,7 @@ The reference switches its ENTIRE pipeline to the Gen3 with one flag
 (USE_IIWA, `bound_planner/RobotModel/RobotModel.py:10,18-21`): URDF,
 limits, and the symbolic FK the OCP consumes all follow. Here the same
 switch is ``MPCParams(robot="gen3")`` — these tests pin that the knob
-actually reaches the OCP/MPC (VERDICT r4 missing #1: the chain existed
+actually reaches the OCP/MPC (the chain once existed
 but the pipeline was hard-wired to the iiwa default).
 """
 
@@ -61,7 +61,7 @@ def test_gen3_reaches_ocp():
 
 @pytest.mark.slow
 def test_gen3_plan_and_track():
-    """A gen3 scene tracks closed-loop on CPU (VERDICT r4 next-#5 bar)."""
+    """A gen3 scene tracks closed-loop on CPU."""
     node = MPCNode(Q0, params=GEN3_CFG)
 
     p0fk, _, _ = node.robot_model.forward_kinematics(Q0, 0 * Q0)

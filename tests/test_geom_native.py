@@ -68,3 +68,20 @@ def test_reduce_ineqs_keeps_tight():
     a, b = cube()
     a_r, b_r = native_geom.reduce_ineqs(a, b)
     assert a_r.shape[0] == 6
+
+
+def test_library_rebuilt_when_source_is_newer(tmp_path, monkeypatch):
+    import os
+    import shutil
+
+    src = tmp_path / "geom.cpp"
+    shutil.copy(native_geom._SRC, src)
+    lib = tmp_path / "build" / "libbp_geom.so"
+    monkeypatch.setattr(native_geom, "_SRC", src)
+    monkeypatch.setattr(native_geom, "_LIB_PATH", lib)
+    assert native_geom._stale()                 # nothing built yet
+    assert native_geom._compile() and lib.exists()
+    assert not native_geom._stale()
+    t = lib.stat().st_mtime
+    os.utime(src, (t + 10, t + 10))             # source edited after the build
+    assert native_geom._stale()

@@ -1,6 +1,6 @@
 """ROS 2 interface schemas (`boundplanner_tpu/idl/`) + typed MPCData path.
 
-Closes the last ROS parity sliver (VERDICT r2 missing-#3): the schemas of
+Closes the last ROS parity sliver: the schemas of
 the reference interface package (`boundmpcmsg/msg/MPCData.msg`,
 `msg/Vector.msg`, `srv/Trajectory.srv`, `srv/MPCParams.srv`) ship with the
 engine, a parser makes them load-bearing, and `ros_compat.to_mpc_data_msg`

@@ -193,7 +193,7 @@ def test_link_operators_match_dense_block(setup):
 def test_chunked_gram_rejects_partial_rows(setup):
     """A chunked-struct Gram over a partial-row matrix (e.g. the
     struct_link dense-row subset) must raise, not silently clip rows —
-    the ADVICE r2 wrong-Gram path."""
+    the wrong-Gram path."""
     cfg, params, xs, st = setup
     assert st.chunked
     x = jnp.asarray(xs[1])

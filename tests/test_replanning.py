@@ -87,7 +87,7 @@ def test_replan_warm_carry_first_tick_quality():
     through `BoundMPC.update` (`BoundMPC.py:193-198,271-336,412-428`).
     A/B on the production iteration budget: the first post-replan solve
     from the carried warm start must be no worse than the cold start it
-    replaces (VERDICT r3 next-#5)."""
+    replaces."""
     import jax
     import jax.numpy as jnp
 

@@ -2,9 +2,9 @@
 
 The PhaseSyncBroker replaces the linger-window coalescing of
 `parallel.broker.BatchBroker` (measured mean width 1.2-1.6 on 16-scene
-fleets, ROUND2_NOTES) with a barrier: a flush fires exactly when every
+fleets) with a barrier: a flush fires exactly when every
 registered worker is parked in `call`, so coalescing width tracks the
-number of in-flight scenes (SURVEY.md §7 phase 6, VERDICT r2 #1).
+number of in-flight scenes (SURVEY.md §7 phase 6).
 """
 
 import threading

@@ -1,7 +1,7 @@
-"""Bisect the batch-context sensitivity (VERDICT r4 next-#3).
+"""Bisect the batch-context sensitivity.
 
 The same scene can solve or diverge depending on which PROGRAM compiled
-around it (batch-1 vmap vs batch-128 fleet; CPU mesh vs chip). Lanes are
+around it (batch-1 vmap vs batch-128 fleet; CPU mesh vs GPU). Lanes are
 mathematically independent everywhere in the stack (the IPM freezes
 converged/failed lanes with exact masked updates; no cross-lane
 reduction touches the iterate), so any lane-value difference across
@@ -33,8 +33,9 @@ import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from boundplanner_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 from boundplanner_tpu.config import perf_mpc_params  # noqa: E402
 from boundplanner_tpu.mpc import ocp, ocp_jac  # noqa: E402
@@ -101,7 +102,7 @@ def main():
         return jax.tree.map(lambda x: np.asarray(x[0]), run(cb, qb, ob))
 
     print(f"scene {scene}, batches {batches}, perf config "
-          f"(pallas_kkt={cfg.pallas_kkt}, qp_bf16={cfg.qp_bf16})")
+          f"(qp_bf16={cfg.qp_bf16})")
     ref = tick_lane0(batches[0])
     results = {batches[0]: ref}
     for b in batches[1:]:

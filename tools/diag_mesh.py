@@ -1,7 +1,7 @@
-"""Per-scene diagnosis of the CPU-mesh quality gap (VERDICT r4 next-#4).
+"""Per-scene diagnosis of a quality gap between backends.
 
-The 8-virtual-device CPU mesh flips marginal scenes that track on the
-chip (MULTICHIP_r04: 0.9414/1.96 vs chip 0.9922/0.0084). This tool runs
+Marginal scenes can track on one backend and fail on another (the
+8-virtual-device CPU mesh sits near success 0.94 on the bench fleet). This tool runs
 the dryrun's exact fleet on the CPU mesh at a chosen dtype and prints
 per-scene failure sets, so flips can be classified:
 
@@ -19,8 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from boundplanner_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np  # noqa: E402
 

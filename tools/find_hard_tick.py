@@ -14,8 +14,6 @@ Usage:  python tools/find_hard_tick.py [n_draws=16] [ticks=8] [seed=7]
 
 Pick a (draw, tick) with viol ~1e-4..1e-2 and early tick (cheap replay),
 then update the pin in test_external_anchor.py.
-
-Ref: VERDICT r3 weak-#7 / next-#9.
 """
 import os
 import sys

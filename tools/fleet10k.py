@@ -1,24 +1,23 @@
-"""BASELINE config 5 artifact: 10k+ parallel planner+MPC rollouts.
+"""BASELINE config 5: 10k+ parallel planner+MPC rollouts.
 
-Drives the three rungs of the 10k-fleet story end to end and records the
-evidence in FLEET10K.json at the repo root:
+Drives the rungs of the 10k-fleet story end to end and prints each result
+as one JSON line:
 
 1. ``build``  — plan the 10240-scene randomized fleet with the process-pool
    planner (`parallel.fleet.build_fleet_mp` via `fleet_cache`); CPU-only.
-2. ``tpu``    — closed-loop rollout of all 10240 scenes on the attached
-   TPU chip (`parallel.batch.chunked_rollout`, one compiled 128-wide
-   program lax.map'ed over 80 chunks) with fleet quality gates.
-3. ``dist``   — multi-host tier: the same fleet rolled by N coordinated
-   processes on a virtual CPU mesh (`parallel.distributed`), the layout a
-   real multi-host pod would use (scenario axis over all devices, DCN
-   diagnostics reductions).
+2. ``gpu``    — closed-loop rollout of all 10240 scenes on one GPU
+   (`parallel.batch.chunked_rollout`, one compiled 128-wide program
+   lax.map'ed over 80 chunks) with fleet quality gates.
+3. ``dist``   — multi-process tier: the same fleet rolled by N coordinated
+   processes (`parallel.distributed`), here on a virtual CPU mesh
+   (scenario axis over all devices, cross-process diagnostics reductions).
 
 Usage:
-    python tools/fleet10k.py tpu   [ticks=10]
+    python tools/fleet10k.py gpu   [ticks=10]
     python tools/fleet10k.py dist  [ticks=2] [nproc=2] [devices_per_proc=4]
     python tools/fleet10k.py dist-worker <ticks>   (internal)
 
-Ref: SURVEY.md §7 phase 7, BASELINE.md config 5, VERDICT r2 next-#1.
+Ref: SURVEY.md §7 phase 7, BASELINE.md config 5.
 """
 
 import json
@@ -30,18 +29,10 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, REPO)
 
 BATCH, SEED, NR_SEGS = 10240, 7, 4
-ARTIFACT = os.path.join(REPO, "FLEET10K.json")
 
 
 def _record(key, payload):
-    data = {}
-    if os.path.exists(ARTIFACT):
-        with open(ARTIFACT) as f:
-            data = json.load(f)
-    data[key] = payload
-    with open(ARTIFACT, "w") as f:
-        json.dump(data, f, indent=1)
-    print(json.dumps({key: payload}))
+    print(json.dumps({key: payload}), flush=True)
 
 
 def _load_fleet():
@@ -50,14 +41,18 @@ def _load_fleet():
     return load(cache_path(BATCH, SEED, NR_SEGS))
 
 
-def main_tpu(ticks: int):
+def main_gpu(ticks: int):
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from boundplanner_tpu import compile_cache
     from boundplanner_tpu.config import perf_mpc_params
+
+    compile_cache.enable()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"the gpu rung needs a GPU; JAX reports {dev.platform!r}")
     from boundplanner_tpu.parallel.batch import chunked_rollout
 
     cfg = perf_mpc_params()
@@ -76,8 +71,9 @@ def main_tpu(ticks: int):
     viol = np.asarray(recs["viol"])
     per_scene_v = viol.max(axis=1)
     per_scene_fail = (1.0 - succ).sum(axis=1)
-    _record("tpu_rollout", {
-        "backend": jax.default_backend(),
+    _record("gpu_rollout", {
+        "platform": dev.platform,
+        "device_kind": dev.device_kind,
         "batch": BATCH,
         "ticks": ticks,
         "wall_s": round(wall, 2),
@@ -136,8 +132,8 @@ def main_dist(ticks: int, nproc: int, devices_per_proc: int):
         "ticks": ticks,
         "wall_s": round(wall, 2),
         # steady-state rollout wall (slowest process, compile excluded —
-        # workers persist compiles in .jax_cache, so a warm deployment
-        # pays t_steady, not wall)
+        # workers persist compiles in the compile cache, so a warm
+        # deployment pays t_steady, not wall)
         "steady_wall_s": round(t_steady, 2),
         "steady_solves_per_s": round(BATCH * ticks / t_steady, 1),
         "t_first_s": max(p["t_first_s"] for p in profs),
@@ -149,12 +145,10 @@ def main_dist_worker(ticks: int):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    # the round-4 dist rung spent ~90% of its 678 s wall in per-process
-    # XLA compiles paid EVERY run: workers never enabled the persistent
-    # cache main_tpu uses. CPU compiles cache the same way.
-    jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from boundplanner_tpu import compile_cache
     from boundplanner_tpu.parallel import distributed as dist
+
+    compile_cache.enable()  # per-process compiles otherwise repeat every run
 
     dist.initialize()
     from boundplanner_tpu.config import perf_mpc_params
@@ -180,8 +174,8 @@ def main_dist_worker(ticks: int):
 
 if __name__ == "__main__":
     mode = sys.argv[1]
-    if mode == "tpu":
-        main_tpu(int(sys.argv[2]) if len(sys.argv) > 2 else 10)
+    if mode == "gpu":
+        main_gpu(int(sys.argv[2]) if len(sys.argv) > 2 else 10)
     elif mode == "dist":
         main_dist(
             int(sys.argv[2]) if len(sys.argv) > 2 else 2,

@@ -1,22 +1,19 @@
 """CPU obstacle gate: plan around a table + box obstacle and track to the
-goal with the MPCNode loop on the CPU backend (f32, perf config without
-the TPU-only Pallas KKT kernel).
+goal with the MPCNode loop on the CPU backend (f32, perf config).
 
 Adoption bar (recorded since round 1): reaches the goal in <= ~40 ticks,
 0 infeasibility fallbacks, final position error ~1 mm, no collision of
 the EE with the ORIGINAL (unexpanded) obstacle boxes on any tick.
 
-Part of the standard solver-change gate set (see ROUND2_NOTES / gate
-ledger in ROUND3_NOTES):
+Part of the standard solver-change gate set:
   1. this script (CPU)
-  2. tools/gate_scene43.py (TPU marginal-scene replay)
-  3. python bench.py 128 20 (TPU random-128 fleet quality + throughput)
-  4. python bench.py 128 50 (TPU long-horizon fleet)
+  2. tools/gate_scene43.py (GPU marginal-scene replay)
+  3. python bench.py 128 20 (GPU random-128 fleet quality + throughput)
+  4. python bench.py 128 50 (GPU long-horizon fleet)
 """
-import os; os.environ["BP_PLATFORM"] = "cpu"  # noqa: E702
+import os
 import jax; jax.config.update("jax_platforms", "cpu")  # noqa: E702
 import sys; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))  # noqa: E501,E702
-import dataclasses
 
 import numpy as np
 from scipy.spatial.transform import Rotation as R
@@ -27,7 +24,7 @@ from boundplanner_tpu.planner import BoundPlanner
 
 
 def main():
-    cfg = dataclasses.replace(perf_mpc_params(), pallas_kkt=False)
+    cfg = perf_mpc_params()
     q0 = np.zeros(7); q0[3] = -np.pi / 2; q0[5] = np.pi / 2  # noqa: E702
     node = MPCNode(q0, params=cfg)
     p0fk, _, _ = node.robot_model.forward_kinematics(q0, 0 * q0)

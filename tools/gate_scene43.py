@@ -1,5 +1,5 @@
-"""Scene-43 replay gate (TPU): the marginal fleet scene that is
-rounding-sensitive (ROUND2_NOTES #8) — replays 30 closed-loop ticks of
+"""Scene-43 replay gate (GPU): the marginal fleet scene that is
+rounding-sensitive — replays 30 closed-loop ticks of
 scene 43 of the checked-in 128-scene fleet at batch-1 vmap on the real
 backend and prints the phi/viol/success series.
 
@@ -17,8 +17,9 @@ import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from boundplanner_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 from boundplanner_tpu.config import perf_mpc_params  # noqa: E402
 from boundplanner_tpu.parallel.batch import fleet_rollout  # noqa: E402

@@ -2,11 +2,10 @@
 EXTENDED per-tick records (error_count, dq, re-anchor trigger state) and
 print per-scene failure chronologies for the worst scenes.
 
-Built for VERDICT r3 task #2: the round-3 snapshot moved the 50-tick gate
-to success 0.9900 / max_viol 4.2323 (was 0.9878 / 3.7123) and nobody
-measured WHICH scene/tick regressed or whether the in-scan re-anchor
-cycles park -> re-anchor -> violate. This tool answers that at scene/tick
-granularity without touching the bench program (separate compile).
+It answers WHICH scene/tick regressed when a fleet gate moves, and
+whether the in-scan re-anchor cycles park -> re-anchor -> violate, at
+scene/tick granularity without touching the bench program (separate
+compile).
 
 Usage: python tools/replay_worst.py [ticks=50] [top=3]
 """
@@ -20,8 +19,9 @@ import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from boundplanner_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 from boundplanner_tpu.config import perf_mpc_params  # noqa: E402
 from boundplanner_tpu.mpc.bound_mpc import mpc_tick  # noqa: E402
